@@ -1,17 +1,16 @@
-"""anap3_tpu — TPU-native lid-driven-cavity solver framework.
+"""anap3_tpu — lid-driven-cavity solver framework on JAX/XLA.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-PN-CourseWork/02689-AdvancedNumericalAlgorithmP3 (mounted read-only at
-/root/reference): FV-SIMPLE and Chebyshev/Legendre pseudospectral
+A ground-up JAX/XLA rebuild of the capabilities of
+PN-CourseWork/02689-AdvancedNumericalAlgorithmP3: FV-SIMPLE and Chebyshev/Legendre pseudospectral
 artificial-compressibility solvers for the 2D lid-driven cavity, with FSG
 spectral multigrid, Ghia/Botella/Saad validation, an experiment harness
 (config composition, tracking, sweeps, hyper-parameter optimization), and
-vmapped/sharded batch execution across TPU chips.
+vmapped/sharded batch execution across accelerator devices.
 
-Design stance (TPU-first, not a port):
+Design stance (accelerator-first, not a port):
 - operator *construction* happens once on the host in float64 numpy;
-- operator *application* is pure jnp under jit: dense (N+1)x(N+1) matmuls on
-  the MXU for the spectral path, fused VPU stencils for the FV path;
+- operator *application* is pure jnp under jit: dense (N+1)x(N+1) matmuls for
+  the spectral path, fused elementwise stencils for the FV path;
 - iteration loops are chunked ``lax.scan`` with frozen-lane early exit so
   convergence semantics match a per-iteration Python loop bit-for-bit;
 - sweeps are ``vmap`` batches (optionally ``shard_map`` over a device mesh),

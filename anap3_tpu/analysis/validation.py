@@ -24,6 +24,7 @@ from ..utils.vts import read_vts
 log = logging.getLogger(__name__)
 
 __all__ = [
+    "read_csv_rows",
     "compute_l2_errors_vs_reference",
     "botella_validation_rows",
     "saad_quantities_rows",
@@ -98,15 +99,29 @@ def compute_l2_errors_vs_reference(
     return results
 
 
+def read_csv_rows(path) -> list:
+    """Rows of a validation CSV as dicts; ``#`` lines are comments and
+    numeric cells become floats (the tables' other cells stay strings)."""
+    import csv
+
+    def cell(text: str):
+        try:
+            return float(text)
+        except ValueError:
+            return text
+
+    with open(path, newline="") as fh:
+        lines = [ln for ln in fh if ln.strip() and not ln.lstrip().startswith("#")]
+    return [{k: cell(v) for k, v in row.items()}
+            for row in csv.DictReader(lines)]
+
+
 def _load_botella(Re: float, base_dir: Optional[Path] = None) -> Optional[dict]:
     base_dir = Path(base_dir) if base_dir is not None else Path.cwd()
     path = base_dir / "data/validation/botella" / f"botella_Re{int(Re)}_vortex.csv"
     if not path.exists():
         return None
-    import pandas as pd
-
-    df = pd.read_csv(path, comment="#")
-    return df.iloc[0].to_dict()
+    return read_csv_rows(path)[0]
 
 
 def botella_validation_rows(metrics, Re: float, base_dir=None) -> Optional[list]:
@@ -162,10 +177,7 @@ def saad_quantities_rows(metrics, Re: float, grid_label: str,
     path = base_dir / "data/validation/saad" / f"saad_Re{int(Re)}_quantities.csv"
     if not path.exists():
         return None
-    import pandas as pd
-
-    df = pd.read_csv(path)
-    ref = df.iloc[-1]  # finest grid row (512^2)
+    ref = read_csv_rows(path)[-1]  # finest grid row (512^2)
     rows = []
     for name, computed, reference in (
         ("Energy", metrics.final_energy, float(ref["Energy"])),

@@ -38,6 +38,12 @@ class CavitySolver:
             kwargs.pop("_target_", None)
             params = self.Parameters(**kwargs)
         params.dtype = resolve_dtype(params.dtype)
+        if params.dtype == "float64":
+            # without 64-bit mode every jnp array silently truncates to
+            # float32 while the run still reports float64
+            import jax
+
+            jax.config.update("jax_enable_x64", True)
         self.params = params
         from ..utils.compile_cache import enable_compile_cache
 
@@ -46,6 +52,16 @@ class CavitySolver:
         self.fields: Optional[Fields] = None
         self.time_series: Optional[TimeSeries] = None
         self._log_callback = None  # optional live-metric hook (tracking)
+
+    def _check_state_dtype(self, state) -> None:
+        """Raise unless every state leaf holds the resolved working dtype."""
+        import jax
+
+        want = np.dtype(self.params.dtype)
+        got = {np.dtype(x.dtype) for x in jax.tree.leaves(state)}
+        if got != {want}:
+            raise TypeError(f"solver state dtype {sorted(map(str, got))} "
+                            f"does not match the resolved dtype {want}")
 
     # ------------------------------------------------------------------
     # Abstract-ish surface implemented by subclasses

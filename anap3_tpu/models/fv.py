@@ -1,6 +1,6 @@
 """Collocated FV-SIMPLE solver on a structured Cartesian grid.
 
-TPU-native redesign of the reference FV stack (src/solvers/fv/solver.py +
+JAX redesign of the reference FV stack (src/solvers/fv/solver.py +
 assembly/discretization/core kernels):
 
 - the unstructured face-list mesh (``MeshData2D`` jitclass) is replaced by
@@ -106,7 +106,7 @@ def build_fv_ops(params: FVParameters, dtype=None) -> tuple[FVOps, dict]:
                          lid_velocity=params.lid_velocity, Lx=params.Lx)
 
     limiter = params.limiter if params.limiter not in ("none", "None", "") else None
-    # float32 mode (the TPU-native default): the configured 1e-9 linear
+    # float32 mode: the configured 1e-9 linear
     # tolerance is below f32 resolution — BiCGSTAB would spin to maxiter
     # every outer iteration. Clamp to ~10 ulp relative; SIMPLE's outer
     # iteration absorbs the slack (the divergence is recomputed from actual
@@ -328,12 +328,6 @@ class FVSolver(CavitySolver):
 
     def __init__(self, params=None, **kwargs):
         super().__init__(params=params, **kwargs)
-        if self.params.dtype == "float64":
-            # f64 correctness mode (CPU hosts): the 1e-9 linear tolerances
-            # need double. On TPU, dtype resolves to float32 (params.py:
-            # resolve_dtype) and the solver runs device-native with a
-            # clamped linear tolerance + refined pressure solve instead.
-            jax.config.update("jax_enable_x64", True)
         self.ops, self.grid = build_fv_ops(self.params)
         ny, nx = self.params.ny, self.params.nx
         dt = jnp.dtype(self.params.dtype)
@@ -342,6 +336,7 @@ class FVSolver(CavitySolver):
             p=jnp.zeros((ny, nx), dt),
             mx=jnp.zeros((ny, nx - 1), dt), my=jnp.zeros((ny - 1, nx), dt),
         )
+        self._check_state_dtype(self.state)
         self._psi_poisson = None
 
     def solve(self, tolerance: float = None, max_iter: int = None) -> None:
@@ -356,44 +351,8 @@ class FVSolver(CavitySolver):
         metric = resolve_convergence_metric(self.params,
                                             auto_large="rel_iter")
 
-        chunk_runner = None
-        step = None
-        if self._pallas_enabled():
-            try:
-                from ..ops.pallas_fv import (MAX_FV_CHUNK_N,
-                                             make_pallas_fv_chunk_runner,
-                                             make_pallas_fv_step)
-
-                step = make_pallas_fv_step(
-                    self.params, ops,
-                    bicgstab_iters=int(self.params.fv_inner_iters))
-                if (metric in ("rel_iter", "energy")
-                        and max(int(self.params.nx),
-                                int(self.params.ny)) <= MAX_FV_CHUNK_N):
-                    # whole chunks of SIMPLE iterations + the convergence
-                    # state machine in one kernel launch (same tier as the
-                    # spectral pallas_chunk path); above its VMEM ceiling
-                    # the per-step kernel still runs under the scan runner.
-                    # "energy" arrives from run_fixed_point mapped to
-                    # (rel_iter, tolerance 0): the kernel only detects
-                    # divergence and the plateau test runs host-side.
-                    def chunk_runner(chunk, tol_, metric_):
-                        from ..models.runner import WARMUP_ITERS
-
-                        return make_pallas_fv_chunk_runner(
-                            self.params, ops, chunk, tol_, WARMUP_ITERS,
-                            bicgstab_iters=int(self.params.fv_inner_iters))
-            except ValueError as exc:
-                # explicit use_pallas=true on an unsupported configuration
-                # (N > 256, averaged Rhie-Chow, sharp limiter): degrade to
-                # the XLA step like the spectral path does
-                log.warning("Fused FV kernel unavailable (%s); using the "
-                            "XLA step", exc)
-                step = None
-                chunk_runner = None
-        if step is None:
-            def step(state):
-                return fv_step(ops, state)
+        def step(state):
+            return fv_step(ops, state)
 
         ckpt_mgr, start_iter = None, 0
         if self.params.checkpoint_dir:
@@ -418,7 +377,6 @@ class FVSolver(CavitySolver):
             checkpoint_mgr=ckpt_mgr,
             start_iteration=start_iter,
             convergence_metric=metric,
-            chunk_runner=chunk_runner,
             stall_chunks=stall,
         )
         if result.stalled:
@@ -430,34 +388,6 @@ class FVSolver(CavitySolver):
                 else float("nan"), tol, result.iterations)
         self.state = result.state
         self._store_results(result)
-
-    def _pallas_enabled(self) -> bool:
-        flag = getattr(self.params, "use_pallas", "auto")
-        if isinstance(flag, bool):
-            enabled = flag
-        elif str(flag).lower() in ("true", "1", "yes"):
-            enabled = True
-        elif str(flag).lower() in ("false", "0", "no"):
-            enabled = False
-        else:  # auto
-            from ..ops.pallas_fv import MAX_FV_STEP_N
-
-            enabled = (jax.default_backend() == "tpu"
-                       and self.params.dtype == "float32"
-                       and max(int(self.params.nx),
-                               int(self.params.ny)) <= MAX_FV_STEP_N
-                       and str(self.ops.rhie_chow) == "compact"
-                       and str(self.ops.limiter or "").lower()
-                       != "muscl-sharp")
-        if enabled and (jax.default_backend() != "tpu"
-                        or self.params.dtype != "float32"):
-            # the kernel is a TPU float32 program; forcing it elsewhere
-            # would fail at first trace (or silently demote f64 state)
-            log.warning("use_pallas requires a TPU float32 solve (backend="
-                        "%s, dtype=%s); using the XLA step",
-                        jax.default_backend(), self.params.dtype)
-            return False
-        return enabled
 
     # -- field plumbing --------------------------------------------------
 

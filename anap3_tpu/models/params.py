@@ -25,20 +25,15 @@ __all__ = [
 
 
 def resolve_dtype(dtype: str) -> str:
-    """Resolve the ``"auto"`` working-precision policy against the backend.
+    """Resolve the ``"auto"`` working-precision policy.
 
-    TPUs have no native float64 — ``auto`` selects float32 there (the
-    solvers compensate: clamped linear tolerances + iterative refinement on
-    the FV pressure solve, residual convergence metric recommended for
-    single-grid spectral). Everywhere else ``auto`` keeps the reference's
-    float64 semantics.
+    ``auto`` keeps the reference's float64 semantics on every backend; an
+    explicit ``float32``/``float64`` is returned unchanged. The solver
+    constructor (models/base.py) enables JAX's 64-bit mode whenever the
+    resolved dtype is float64, so the reported precision is the computed one.
     """
     s = str(dtype).lower()
-    if s != "auto":
-        return str(dtype)
-    import jax
-
-    return "float32" if jax.default_backend() == "tpu" else "float64"
+    return "float64" if s == "auto" else str(dtype)
 
 
 @dataclass
@@ -55,14 +50,14 @@ class Parameters:
     max_iterations: int = 500
     tolerance: float = 1e-4
     method: str = ""
-    # TPU-specific: working precision for the device hot path.
+    # Working precision of the device hot path ("auto" = float64).
     dtype: str = "float64"
     # Mid-solve checkpoint/resume (utils/checkpoint.py). Empty = disabled.
     checkpoint_dir: str = ""
     checkpoint_every_chunks: int = 10
-    # Iterations per jitted chunk: larger values amortize host<->device sync
-    # latency (important over remote-device tunnels) at the cost of up to
-    # chunk_size-1 extra frozen iterations after convergence.
+    # Iterations per jitted chunk: larger values amortize the per-chunk
+    # host<->device sync at the cost of up to chunk_size-1 extra frozen
+    # iterations after convergence.
     chunk_size: int = 200
     # Convergence criterion: "auto" (default — spectral single/FSG solves
     # resolve to "energy" at N >= 128 where the measured rel-iter
@@ -106,14 +101,7 @@ class FVParameters(Parameters):
     method: str = "FV-SIMPLE"
     corner_treatment: str = "none"
     corner_smoothing: float = 0.15
-    # Fused Pallas SIMPLE-step kernel (ops/pallas_fv.py): "auto" uses it on
-    # TPU float32 for N <= 256 with the default scheme options. The fused
-    # kernel runs a FIXED number of inner BiCGSTAB iterations
-    # (fv_inner_iters, warm-started) instead of a tolerance test — the
-    # reference itself tolerates non-converged momentum solves.
-    use_pallas: str = "auto"
-    fv_inner_iters: int = 16
-    # TPU-specific: "compact" uses the proper Rhie-Chow face pressure gradient
+    # "compact" uses the proper Rhie-Chow face pressure gradient
     # (p_N - p_P)/d; "averaged" reproduces the reference formulation, whose
     # face-gradient correction cancels identically (rhie_chow.py:33-60 both
     # interpolate cell gradients, so grad_p_bar - avg(grad_p) == 0).
@@ -132,15 +120,6 @@ class SpectralParameters(Parameters):
     corner_smoothing: float = 0.15
     multigrid: str = "none"  # "none" | "fsg"
     n_levels: int = 3
-    # MXU matmul algorithm for the fused TPU kernels: "x3" (three-pass bf16
-    # decomposition, ~1.4e-5 relative, 1.2-1.9x faster) | "x6"
-    # (= Precision.HIGHEST, full f32 accuracy) | "auto" (x3 — validated to
-    # reproduce Ghia-level accuracy; see STATUS.md round-2 measurements).
-    matmul_algorithm: str = "auto"
-    # Fused Pallas RK4 kernel (ops/pallas_step.py): "auto" uses it on TPU
-    # with float32 (1-ulp parity with the XLA path, far faster compiles);
-    # true/false force it on/off.
-    use_pallas: str = "auto"
     coarse_tolerance_factor: float = 10.0
     prolongation_method: str = "fft"
     restriction_method: str = "fft"
@@ -154,8 +133,8 @@ class SpectralParameters(Parameters):
     newton_schur_iters: int = 40
     newton_prelude: int = 0       # marched RK4 warm-up steps before PTC
     initial_state_path: str = ""  # npz {u, v, p} warm start (Re-continuation)
-    # Float64 Newton polish of the marched solution (SG/FSG/VMG): after the
-    # TPU float32 march stops, a few PTC steps land on the EXACT discrete
+    # Float64 Newton polish of the marched solution (SG/FSG/VMG): after a
+    # float32 march stops, a few PTC steps land on the EXACT discrete
     # steady state (removes every float32 criterion-floor concern).
     newton_polish: bool = False
     newton_polish_tol: float = 1e-9   # RMS steady-residual target

@@ -83,127 +83,6 @@ def scaled_plateau_chunks(n: int, chunk: int, anchor_n: int = 96,
     return max(ENERGY_PLATEAU_CHUNKS, int(np.ceil(window / max(int(chunk), 1))))
 
 
-def effective_chunk(chunk_runner_factory, requested: int) -> int:
-    """Chunk length to book with run_fixed_point for a fused runner.
-
-    A factory may advertise ``max_chunk`` (VMEM-bound kernels cap the rows
-    buffer); the solver must dispatch and account with the SAME value the
-    kernel actually runs."""
-    mc = getattr(chunk_runner_factory, "max_chunk", None)
-    return int(requested) if not mc else min(int(requested), int(mc))
-
-
-def make_fused_paths(ops, params, tol, metric: Optional[str] = None):
-    """Select the fused TPU kernel tier for this grid size.
-
-    Returns ``(step, chunk_runner_factory)`` or ``(None, None)`` when no
-    fused kernel covers the size (fall back to the XLA step).
-
-    Tiers: the row-phase-structured tiled kernels (ops/pallas_tiled.py)
-    with the x3 bf16 decomposition and stacked-operator dots are the
-    production path — measured faster than the round-1 whole-step x6
-    kernels at EVERY size (N=128: 52.9k vs 35.5k steps/s; N=256: 14.9k vs
-    the 6.8k XLA fallback; full table in STATUS.md "Performance") while
-    converging to the same Ghia-level accuracy. ``matmul_algorithm: x6``
-    selects full-f32-accuracy kernels (the untiled whole-step kernel for
-    N<=192, the tiled x6 variant above that).
-    """
-    from ..ops.pallas_step import MAX_FUSED_N, make_pallas_sg_step
-    from ..ops.pallas_chunk import make_pallas_chunk_runner
-    from ..ops.pallas_aligned import (aligned_supported,
-                                      make_aligned_chunk_runner)
-    from ..ops.pallas_tiled import (MAX_TILED_N, make_tiled_chunk_runner,
-                                    make_tiled_sg_step)
-    from .runner import WARMUP_ITERS
-
-    n = int(ops.bc_u.shape[0]) - 1  # this level's order (FSG levels differ)
-    alg = str(getattr(params, "matmul_algorithm", "auto") or "auto").lower()
-    if metric is None:
-        metric = resolve_convergence_metric(params)
-    if alg == "auto":
-        alg = "x3"
-    # Factories receive the criterion ALREADY MAPPED by run_fixed_point
-    # ("energy" arrives as rel_iter with tolerance 0 — the in-kernel state
-    # machine then only detects divergence and the plateau test runs
-    # host-side). Only the build-time tier gate needs the mapped value.
-    effective = "rel_iter" if metric == "energy" else metric
-    # Conserved-quantity dots + residual border strips cost ~15-25% of an
-    # aligned step when sampled every step; sample them every 16th step
-    # instead (history rows hold the last sampled values — the 1000-point
-    # downsample is far sparser, and the energy-plateau windows span
-    # thousands of steps). The 'residual' criterion overrides this inside
-    # the kernel (it consumes the continuity norm every step). Measured
-    # 16 vs 8 on one v5e: N=128 B=1 +3.7% (236.8k vs 228.3k steps/s),
-    # N=96 B=32 lanes +2.1%; beyond 16 the remaining tax is < 1%.
-    ALIGNED_METRICS_EVERY = 16
-    if ops.sing_u is not None:
-        # singular subtraction: the bordered-core aligned kernel carries the
-        # singular constants up to N=256 (~3.5x the tiled rate at the
-        # headline size); the tiled kernels cover every other N <= 320. The
-        # untiled x6 kernel assumes zero/lid-only borders — never singular.
-        if n > MAX_TILED_N:
-            return None, None
-        step = make_tiled_sg_step(
-            ops, algorithm="x3" if alg == "x1" else alg)
-        m_every = 1 if n <= MAX_FUSED_N else 8
-        if aligned_supported(n, singular=True):
-            m_every = ALIGNED_METRICS_EVERY
-            factory = lambda chunk, tol_, metric_: make_aligned_chunk_runner(
-                ops, chunk, tol_, WARMUP_ITERS, algorithm=alg,
-                convergence_metric=metric_, metrics_every=m_every)
-            return step, factory
-        if alg == "x1":
-            log.warning("matmul_algorithm=x1 covers only the aligned tier; "
-                        "singular N=%d runs x3", n)
-            alg = "x3"
-        # the nine singular constant fields squeeze the N>192 VMEM budget;
-        # the rows buffer (chunk x 7 f32, lane-padded to 128) must shrink.
-        # The cap is ADVERTISED via factory.max_chunk so the solvers clamp
-        # the chunk they book with run_fixed_point to the same value — a
-        # silently smaller rows buffer would crash the history masking and
-        # corrupt iteration accounting.
-        max_chunk = 2000 if n > MAX_FUSED_N else None
-        factory = lambda chunk, tol_, metric_: make_tiled_chunk_runner(
-            ops, chunk if max_chunk is None else min(chunk, max_chunk),
-            tol_, WARMUP_ITERS, algorithm=alg,
-            convergence_metric=metric_, metrics_every=m_every)
-        factory.max_chunk = max_chunk
-        return step, factory
-    if alg == "x6" and n <= MAX_FUSED_N:
-        step = make_pallas_sg_step(ops)
-        # the untiled chunk kernel implements rel_iter only
-        factory = (lambda chunk, tol_, metric_: make_pallas_chunk_runner(
-            ops, chunk, tol_, WARMUP_ITERS)
-        ) if effective == "rel_iter" else None
-    elif aligned_supported(n):
-        # bordered-core MXU-aligned tier (N % 8 == 0, 32 <= N <= 320): state
-        # rides a padding-free core, borders are per-run constants — ~4x the
-        # tiled rate at N=128 (183k vs 48k steps/s), ~2x at N=256 (31.6k).
-        # x1 (single-bf16-pass dots, explicit opt-in) exists only in the
-        # aligned chunk kernel; the per-step fallback keeps x3 accuracy.
-        step = make_tiled_sg_step(
-            ops, algorithm="x3" if alg == "x1" else alg)
-        factory = lambda chunk, tol_, metric_: make_aligned_chunk_runner(
-            ops, chunk, tol_, WARMUP_ITERS, algorithm=alg,
-            convergence_metric=metric_, metrics_every=ALIGNED_METRICS_EVERY)
-    elif n <= MAX_TILED_N:
-        if alg == "x1":
-            log.warning("matmul_algorithm=x1 covers only the aligned tier "
-                        "(N %% 8 == 0, 32 <= N <= 320); N=%d runs x3", n)
-            alg = "x3"
-        step = make_tiled_sg_step(ops, algorithm=alg)
-        # above the N=192 tier the conserved-quantity dots cost ~8% of the
-        # step; sample them every 8th step (history rows carry the last
-        # values; the 1000-point downsample is far sparser anyway)
-        m_every = 1 if n <= MAX_FUSED_N else 8
-        factory = lambda chunk, tol_, metric_: make_tiled_chunk_runner(
-            ops, chunk, tol_, WARMUP_ITERS, algorithm=alg,
-            convergence_metric=metric_, metrics_every=m_every)
-    else:
-        return None, None
-    return step, factory
-
-
 class SGSolver(CavitySolver):
     """Single-grid PN-PN-2 artificial-compressibility solver (reference sg.py)."""
 
@@ -218,6 +97,7 @@ class SGSolver(CavitySolver):
         super().__init__(params=params, **kwargs)
         self.ops, self.grid = core.build_spectral_ops(self.params)
         self.state = core.initial_state(self.ops)
+        self._check_state_dtype(self.state)
         self._psi_poisson = None
         # Tensor-parallel mesh for ONE large solve (machine.mesh_axes: [x]);
         # set by the driver (main.run_solver) before solve().
@@ -252,17 +132,8 @@ class SGSolver(CavitySolver):
                     self.params.nx, floor, self.params.Re)
         metric = resolve_convergence_metric(self.params)
 
-        chunk_runner = None
-        step = None
-        if self._pallas_enabled():
-            # whole chunks fused into single kernels (in-kernel stepping +
-            # convergence state machine); factory is None when the selected
-            # kernel tier does not support the configured metric
-            step, chunk_runner = make_fused_paths(ops, self.params, tol,
-                                                  metric=metric)
-        if step is None:
-            def step(state):
-                return core.sg_step(ops, state)
+        def step(state):
+            return core.sg_step(ops, state)
 
         ckpt_mgr, start_iter = None, 0
         if self.params.checkpoint_dir:
@@ -275,22 +146,21 @@ class SGSolver(CavitySolver):
             if start_iter:
                 log.info("Resumed from checkpoint at iteration %d", start_iter)
 
-        chunk_eff = effective_chunk(chunk_runner, self.params.chunk_size)
+        chunk = int(self.params.chunk_size)
         result = run_fixed_point(
             step,
             lambda s: (s.u, s.v),
             self.state,
             tolerance=tol,
             max_iterations=max_iter,
-            chunk=chunk_eff,
+            chunk=chunk,
             log_callback=self._log_callback,
             checkpoint_mgr=ckpt_mgr,
             start_iteration=start_iter,
             convergence_metric=metric,
-            chunk_runner=chunk_runner,
             stall_chunks=self._stall_chunks(),
             energy_plateau_chunks=scaled_plateau_chunks(
-                int(self.params.nx), chunk_eff),
+                int(self.params.nx), chunk),
         )
         if result.stalled:
             log.warning(
@@ -304,7 +174,7 @@ class SGSolver(CavitySolver):
     def _maybe_newton_polish(self, result: IterationResult) -> IterationResult:
         """Optional float64 Newton polish of the marched state.
 
-        ``newton_polish=true``: after the (typically float32 TPU) march
+        ``newton_polish=true``: after the (typically float32) march
         stops, a few PTC Newton steps (models/steady.py) drive the state to
         the EXACT discrete steady state (RMS steady residual <=
         newton_polish_tol) — eliminating every float32 criterion-floor /
@@ -429,22 +299,6 @@ class SGSolver(CavitySolver):
             p=jnp.asarray(np.asarray(spatial.unpad_pressure(p_pad))))
         result = self._maybe_newton_polish(result)
         self._store_results(result)
-
-    def _pallas_enabled(self) -> bool:
-        flag = getattr(self.params, "use_pallas", "auto")
-        if isinstance(flag, bool):
-            return flag
-        if str(flag).lower() in ("true", "1", "yes"):
-            return True
-        if str(flag).lower() in ("false", "0", "no"):
-            return False
-        # auto: fused kernel on TPU float32 solves that fit its VMEM budget
-        import jax
-        from ..ops.pallas_tiled import MAX_TILED_N
-
-        return (jax.default_backend() == "tpu"
-                and jnp.dtype(self.params.dtype) == jnp.float32
-                and int(self.params.nx) <= MAX_TILED_N)
 
     # -- field plumbing --------------------------------------------------
 
@@ -628,26 +482,18 @@ class FSGSolver(SGSolver):
             else:
                 state = self._prolongate(state, prev_n, n, ops, dtype)
 
-            chunk_runner = None
-            step = None
-            if self._pallas_enabled():
-                step, chunk_runner = make_fused_paths(ops, self.params,
-                                                      level_tol,
-                                                      metric=metric)
-            if step is None:
-                def step(s, _ops=ops):
-                    return core.sg_step(_ops, s)
+            def step(s, _ops=ops):
+                return core.sg_step(_ops, s)
 
-            chunk_eff = effective_chunk(chunk_runner, self.params.chunk_size)
+            chunk = int(self.params.chunk_size)
             result = run_fixed_point(
                 step, lambda s: (s.u, s.v), state,
                 tolerance=level_tol, max_iterations=max_iter,
-                chunk=chunk_eff,
+                chunk=chunk,
                 log_callback=self._log_callback
                 if level_idx == len(orders) - 1 else None,
                 convergence_metric=metric,
-                chunk_runner=chunk_runner,
-                energy_plateau_chunks=scaled_plateau_chunks(n, chunk_eff),
+                energy_plateau_chunks=scaled_plateau_chunks(n, chunk),
             )
             state = result.state
             total_iters += result.iterations

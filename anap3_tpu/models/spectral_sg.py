@@ -1,9 +1,9 @@
 """Single-grid PN-PN-2 pseudospectral artificial-compressibility solver.
 
-TPU-native redesign of the reference SG solver (src/solvers/spectral/sg.py):
+Accelerator redesign of the reference SG solver (src/solvers/spectral/sg.py):
 
-- all per-iteration work is a handful of dense (N+1)x(N+1) matmuls executed on
-  the MXU inside one jitted RK4 step (the reference runs numpy matmuls per
+- all per-iteration work is a handful of dense (N+1)x(N+1) matmuls executed
+  inside one jitted RK4 step (the reference runs numpy matmuls per
   stage from Python);
 - the inner->full pressure interpolation and differentiation are FUSED into
   precomputed operators: dp/dx = (Dx@Ix) p Iy^T, dp/dy = Ix p (Dy@Iy)^T,

@@ -88,7 +88,7 @@ class VmgLevel:
     pro_inner: jnp.ndarray | None = None
 
 
-# Calibration of the cell-Peclet safeguards (measured on the v5e, f32):
+# Calibration of the cell-Peclet safeguards (measured in float32):
 # STABLE:    N=24 at Re=1000 (Pe=65, VMG damping 0.6); N=48 at Re=3200
 #            (Pe=105, FSG cascade, converged to 1e-6);
 # DIVERGENT: N=12 at Re=1000 (Pe=131, VMG even with damping 0.6); N=24 at
@@ -100,7 +100,7 @@ class VmgLevel:
 PE_COARSEST_MAX = 110.0     # coarsest level must have Pe <= this
 PE_FULL_CORRECTION = 15.0   # undamped corrections below this
 
-# FAS resolution floor (round-2 study, measured on the v5e, f32, cold
+# FAS resolution floor (round-2 study, measured in float32, cold
 # start, full-strength corrections, nu1=nu2=2, nu_coarse=30):
 #   Re=100:  fine 48 / coarse 24 converges EXACTLY to the SG energy
 #            (0.032880 vs truth 0.0328805); coarse 12 limit-cycles at a
@@ -120,8 +120,7 @@ PE_FULL_CORRECTION = 15.0   # undamped corrections below this
 # imposes on the fine state. The observed brackets (floor in (12,24] at
 # Re=100, (48,96] at Re=1000) pin the coefficient to ~2.4.
 #
-# ROUND-5 HIGH-Re RE-BRACKETING (VERDICT r4 #8; measured 2026-08-20 on
-# the v5e, f32, energy criterion, fine N=192, truth = converged
+# ROUND-5 HIGH-Re RE-BRACKETING (measured in float32, energy criterion, fine N=192, truth = converged
 # FSG/SG-energy state at the same N; scripts/dev/vmg_probe.py --orders):
 # - Re=3200: cold [192, 96] converges UNBIASED (283k cycles, L2 vs
 #   truth 5.8e-3/7.6e-3 = criterion slop) and so does cold [192, 64]
@@ -190,7 +189,7 @@ def fas_coarsest_n(Re: float, singular: bool = False) -> int:
 
     SINGULAR mode coarsens further (coefficient 2.0 vs 2.4): subtracting
     the corner flow removes the profile feature the smoothed lid forces
-    every level to resolve. Measured (round 4, TPU f32, nodal-injection
+    every level to resolve. Measured (round 4, float32, nodal-injection
     defect restriction): Re=1000 [128, 64] — coarse 64 BELOW the
     smoothed-lid floor of 76 — converges unbiased to the exact sharp-lid
     truth (u L2 5.4e-3, psi_min 0.34% vs Botella); 2.0*sqrt(1000) = 63.2
@@ -213,18 +212,6 @@ def _warn_if_degenerate(levels, params) -> None:
             int(params.nx), float(params.Re), fas_coarsest_n(float(params.Re)))
 
 
-# Ceiling for the FAS-forced (with_tau) x6 kernels = the tiled-kernel
-# ceiling: at N=320 the whole-height row phase plus the three tau input
-# buffers exceed VMEM, so levels above 256 smooth through ROW-BLOCKED
-# kernels (blk=32, matching build_fused_tau_steps below) that bound the
-# row-phase temporaries. (Round-2 note,
-# superseded: with the unblocked kernels the N=320 tau tier failed to
-# compile and an XLA fine level blew the whole-cycle jit graph to a
-# >45-min remote compile; the blocked fused kernel keeps the cycle graph
-# small because Pallas calls are opaque to XLA.)
-MAX_TAU_N = 320
-# Levels above this row-block the smoothing kernel.
-_TAU_BLK_N = 256
 # "auto" convergence criterion switches from per-cycle rel_iter to the
 # kinetic-energy plateau at this fine-grid size (see VMGSolver.solve).
 VMG_AUTO_ENERGY_MIN_N = 256
@@ -234,38 +221,6 @@ VMG_AUTO_ENERGY_MIN_N = 256
 # point with E stationary at 0.0300 vs 0.0397 — warm starts converge, so
 # FMG is the production solver there; see VMGSolver.solve).
 VMG_COLD_START_MAX_N = 256
-
-
-def build_fused_tau_steps(solver, levels) -> dict | None:
-    """FAS-forced fused kernels per level (the fast smoothing path).
-
-    ALWAYS x6 (full f32 matmul accuracy): the FAS tau cancellation requires
-    the smoother's residual operator to match the defect operator (computed
-    at XLA HIGHEST). With x3 smoothing the ~1.4e-5 operator mismatch keeps
-    injecting noise every cycle and the outer fixed point never reaches
-    1e-6 (measured: VMG N=96 Re=1000 ran 500k cycles without converging,
-    vs 5.4k cycles with consistent operators).
-    """
-    if not solver._pallas_enabled():
-        return None
-    from ..ops.pallas_aligned import aligned_supported, make_aligned_tau_step
-    from ..ops.pallas_tiled import make_tiled_sg_step
-
-    def mk(lv):
-        # bordered-core x6 smoothing where the aligned tier covers the
-        # level (round 4): measured whole-cycle rates on one v5e —
-        # [128,64,32] 2520 vs 1913 cycles/s, [256,128] 1244 vs 542
-        # (2.3x: the tiled tau step must row-block above _TAU_BLK_N),
-        # [192,96] a wash, [320,160,80] the ALIGNED step is slower
-        # (496 vs 612: the raised-VMEM x6 core spills), so the routing
-        # caps at 256.
-        if lv.n <= 256 and aligned_supported(
-                lv.n, singular=lv.ops.sing_u is not None):
-            return make_aligned_tau_step(lv.ops, algorithm="x6")
-        return make_tiled_sg_step(lv.ops, algorithm="x6", with_tau=True,
-                                  blk=32 if lv.n > _TAU_BLK_N else None)
-
-    return {i: mk(lv) for i, lv in enumerate(levels) if lv.n <= MAX_TAU_N}
 
 
 def build_vmg_levels(params: SpectralParameters, n_fine: int | None = None,
@@ -374,8 +329,7 @@ def _zero_boundary(a: jnp.ndarray) -> jnp.ndarray:
 
 
 def make_v_cycle(levels: List[VmgLevel], nu1: int = 2, nu2: int = 2,
-                 nu_coarse: int = 30, damping: float = 1.0,
-                 fused_steps: dict | None = None):
+                 nu_coarse: int = 30, damping: float = 1.0):
     """Build the jitted V-cycle step: state -> (state, metrics).
 
     ``damping`` under-relaxes the prolongated coarse-grid correction
@@ -383,27 +337,12 @@ def make_v_cycle(levels: List[VmgLevel], nu1: int = 2, nu2: int = 2,
     round-2 study showed damping only slows the drift toward the coarse
     attractor when a level violates the FAS resolution floor, it does not
     remove it, while levels satisfying the floor need no damping).
-
-    ``fused_steps`` (optional {level_idx: step(state, tau)}) runs the
-    smoothing sweeps through the FAS-forced fused Pallas kernels
-    (ops/pallas_tiled.make_tiled_sg_step(with_tau=True)) instead of the XLA
-    step — the round-2 fix that puts V-cycles on the fast kernel path.
     """
-    fused_steps = fused_steps or {}
-
     def smooth(idx: int, state, tau, n_steps: int):
         level = levels[idx]
-        fstep = fused_steps.get(idx)
-        if fstep is not None:
-            tau_f = tau if tau is not None else (
-                jnp.zeros_like(state.u), jnp.zeros_like(state.v),
-                jnp.zeros_like(state.p))
 
-            def body(s, _):
-                return fstep(s, tau_f)
-        else:
-            def body(s, _):
-                return core.sg_step(level.ops, s, tau=tau)
+        def body(s, _):
+            return core.sg_step(level.ops, s, tau=tau)
 
         state, ms = jax.lax.scan(body, state, None, length=n_steps)
         last = jax.tree.map(lambda x: x[-1], ms)
@@ -489,9 +428,6 @@ class VMGSolver(SGSolver):
     NU_COARSE = 30
     SUPPORTS_SPATIAL_MESH = False
 
-    def _fused_steps(self, levels) -> dict | None:
-        return build_fused_tau_steps(self, levels)
-
     def _reject_singular(self) -> bool:
         """Singular-mode FAS is supported on Chebyshev hierarchies (round 4,
         VERDICT r3 #3): nodal-injection defect restriction cancels the
@@ -551,8 +487,7 @@ class VMGSolver(SGSolver):
             cyc_chunk = max(1, min(50, self.params.chunk_size // 4))
             if len(sub_levels) > 1:
                 step = make_v_cycle(sub_levels, self.NU1, self.NU2,
-                                    self.NU_COARSE,
-                                    fused_steps=self._fused_steps(sub_levels))
+                                    self.NU_COARSE)
                 budget = max(1, max_iter // (self.NU1 + self.NU2))
                 window = scaled_plateau_chunks(
                     level.n, cyc_chunk, anchor_n=192, anchor_window=150)
@@ -610,7 +545,7 @@ class VMGSolver(SGSolver):
         _warn_if_degenerate(levels, self.params)
         if len(levels) == 1:
             # genuinely degenerate to single-grid SG: run the SG solve path
-            # (per-step criterion, fused chunk kernels, the requested
+            # (per-step criterion, the requested
             # max_iterations as FINE steps) instead of make_v_cycle's
             # coarsest branch, which would smooth NU_COARSE steps per
             # "cycle" against a NU1+NU2-scaled cycle budget.
@@ -634,8 +569,7 @@ class VMGSolver(SGSolver):
                 levels, tol, max_iter)
             log.info("VMG warm-start prelude done (%d sub-level "
                      "iterations)", pre_iters)
-        v_cycle = make_v_cycle(levels, self.NU1, self.NU2, self.NU_COARSE,
-                               fused_steps=self._fused_steps(levels))
+        v_cycle = make_v_cycle(levels, self.NU1, self.NU2, self.NU_COARSE)
         # per-cycle work = nu1+nu2 fine smoothing steps; scale the cycle
         # budget so max_iterations keeps its fine-step meaning
         max_cycles = max(1, max_iter // (self.NU1 + self.NU2))
@@ -715,8 +649,7 @@ class FMGSolver(SGSolver):
                 state = self._prolongate_fmg(prev, level, state, dtype)
             if len(sub_levels) > 1:
                 step = make_v_cycle(
-                    sub_levels, self.NU1, self.NU2, self.NU_COARSE,
-                    fused_steps=build_fused_tau_steps(self, sub_levels))
+                    sub_levels, self.NU1, self.NU2, self.NU_COARSE)
                 budget = max(1, max_iter // (self.NU1 + self.NU2))
             else:
                 def step(s, _ops=level.ops):

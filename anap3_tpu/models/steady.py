@@ -30,8 +30,8 @@ preconditioner then converges in tens of vectors per step:
 
 Everything device-side is float64 (Newton to ||F||_rms <= 1e-6 needs it);
 the Arnoldi basis lives on the host. At these sizes (N <= 256) the solve is
-latency-dominated, not FLOP-dominated, so the emulated-f64 matmuls on TPU
-are immaterial; the solver runs equally on CPU (platform=cpu).
+latency-dominated, not FLOP-dominated; the solver runs equally on CPU
+(platform=cpu).
 """
 
 from __future__ import annotations
@@ -327,13 +327,13 @@ def polish_state(params, state: core.SpectralState, *, tol_rms: float,
                  = None):
     """Float64 Newton polish of a (possibly float32) marched state.
 
-    The marched TPU solvers stop at their float32 criterion floors; a few
+    Marched float32 solves stop at their float32 criterion floors; a few
     PTC steps from their final state land on the EXACT discrete steady
     state. Returns ``(state64, converged, diverged, steps, final_rms)``.
     The start is already near-steady, so dt0 = 1.0 (SER ramps from there).
 
     Enables ``jax_enable_x64`` process-wide and leaves it on (same policy
-    as the float64 FV path, models/fv.py): restoring it would downcast the
+    as every float64 solver, models/base.py): restoring it would downcast the
     returned f64 state in later traced analysis ops, and every float32
     solver path is TESTED under x64=on (tests/conftest.py enables it
     globally), so late enabling is safe for mixed sweeps.
@@ -385,8 +385,7 @@ class NewtonSolver(SGSolver):
     exact state reproduces Botella & Peyret's N=160 benchmark to 0.003%
     (psi_min -0.118909 vs -0.1189366, omega 2.067697 vs 2.067753).
     Re-continuation ladder 1000 -> 3200 -> 5000 -> 7500 -> 10000 in 15-30
-    steps per stage; on TPU (emulated f64, latency-bound) N=256 stages run
-    ~10x faster per step than the 1-core CPU. Ghia centerline errors at the
+    steps per stage. Ghia centerline errors at the
     exact steady states are IDENTICAL at N=128 and N=256 (u 0.018-0.033, v
     0.049/0.109/0.139 at Re=3200/5000/7500), so the remaining v gap at the
     1-3 near-wall jet points is Ghia's own 257^2-grid error, not ours.

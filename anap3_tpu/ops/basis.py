@@ -2,7 +2,7 @@
 
 All functions here run ONCE at solver setup, on the host, in float64 numpy.
 The resulting dense operators are cast to the working dtype and applied on
-the TPU as MXU matmuls. This mirrors the layer-0 surface of the reference
+the device as dense matmuls. This mirrors the layer-0 surface of the reference
 (``src/solvers/spectral/basis/{polynomial,spectral}.py``) but is fully
 vectorized (no per-entry Python loops) since it never runs in the hot path.
 

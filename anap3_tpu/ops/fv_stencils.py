@@ -1,10 +1,10 @@
 """Vectorized structured-grid stencil kernels for the FV-SIMPLE solver.
 
-TPU-native replacement for the reference's unstructured face-list Numba
+Accelerator replacement for the reference's unstructured face-list Numba
 kernels (src/solvers/fv/{assembly,discretization,core}): on the uniform
 Cartesian grid the reference actually builds (simple_structured.py:148-312),
 owner/neighbor face loops reduce to shifted-array arithmetic that XLA fuses
-into a handful of VPU kernels. Conventions:
+into a handful of elementwise kernels. Conventions:
 
 - cell arrays have shape (ny, nx), index [j, i] (y slow, x fast), cell id
   j*nx + i — identical to the reference cell ordering;

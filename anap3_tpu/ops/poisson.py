@@ -8,10 +8,10 @@ The reference solves its Poisson problems with host sparse factorizations:
 - FV pressure correction: PyAMG-preconditioned BiCGSTAB on a constant
   conductance matrix (fv/solver.py:91-107, 223-232).
 
-None of those map to the TPU. Because every operator here is a *separable*
+None of those map to an accelerator. Because every operator here is a *separable*
 constant operator L = Ax ⊗ I + I ⊗ Ay, we precompute the 1D eigendecomposition
 Ax = Vx Λx Vx^{-1} once on the host (float64) and solve on device with four
-MXU matmuls and one elementwise divide:
+dense matmuls and one elementwise divide:
 
     U = Vx [ (Vx^{-1} F Vy^{-T}) / (λx_i + λy_j) ] Vy^T
 
@@ -53,7 +53,7 @@ class SeparablePoisson:
     ``symmetric=True`` (for the symmetric FD/FV Laplacians) uses ``eigh`` so
     the eigenbases are exactly orthogonal and the "inverse" matmuls are plain
     transposes — markedly better conditioned in float32 than a general
-    ``inv(V)``, which matters for the TPU (f32-native) FV pressure solve.
+    ``inv(V)``, which matters for the float32 FV pressure solve.
 
     ``Ax``/``Ay`` are kept so ``solve_refined`` can run classical iterative
     refinement: one extra residual apply + solve recovers most of the f32

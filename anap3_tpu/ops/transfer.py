@@ -2,10 +2,10 @@
 
 The reference implements DCT-I based prolongation/restriction with per-call
 ``scipy.fft.dct`` plus a JIT polynomial evaluation loop
-(``src/solvers/spectral/operators/transfer_operators.py``). On TPU the right
-formulation is different: grid sizes are fixed per multigrid level, so each
+(``src/solvers/spectral/operators/transfer_operators.py``). On an accelerator the
+right formulation is different: grid sizes are fixed per multigrid level, so each
 transfer is a *constant linear operator* — we materialize it once as an
-(n_to, n_from) matrix and apply 2D transfers as two MXU matmuls:
+(n_to, n_from) matrix and apply 2D transfers as two dense matmuls:
 
     U_fine = P_x @ U_coarse @ P_y^T
 

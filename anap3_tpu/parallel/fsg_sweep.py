@@ -110,15 +110,11 @@ def run_batched_fsg(param_list: Sequence[SpectralParameters],
         else:
             metric = "rel_iter"
         from ..models.spectral import scaled_plateau_chunks
-        from ..ops.pallas_lanes import maybe_lane_runner
 
-        # every level's lanes share operators, so each level solve can run
-        # inside ONE fused Pallas program (the single-run kernels' lane tier)
-        chunk_runner = maybe_lane_runner(ops_list, p0, mesh=mesh, log=log)
         res = run_batched_sweep(
             core.sg_step, lambda s: (s.u, s.v), batched_ops, states,
             tolerance=level_tol, max_iterations=max_iter, chunk=chunk,
-            mesh=mesh, convergence_metric=metric, chunk_runner=chunk_runner,
+            mesh=mesh, convergence_metric=metric,
             energy_plateau_chunks=scaled_plateau_chunks(n, chunk))
         states = res.states
         iters += np.asarray(res.iterations)

@@ -13,14 +13,14 @@ execution of the same program:
 
 On a **virtual CPU mesh** (``--xla_force_host_platform_device_count``) all
 "devices" share the host's cores, so efficiencies well below 100% are
-EXPECTED and say nothing about TPU behavior — callers label such values
-``dryrun``. The day real multi-chip hardware appears, the same entry points
+EXPECTED and say nothing about accelerator behavior — callers label such
+values ``dryrun``. The day real multi-chip hardware appears, the same entry points
 produce honest numbers (bench.py gates on ``len(jax.devices()) > 1``).
 
 Reference counterpart: the reference scales sweeps via joblib/LSF job
 arrays (scripts/submit_sweep.sh; conf/machine) and has no tensor-parallel
-axis at all; this module is the measurement harness for the TPU-native
-replacements.
+axis at all; this module is the measurement harness for both of this
+package's replacements.
 """
 
 from __future__ import annotations
@@ -32,13 +32,6 @@ from typing import Sequence
 import numpy as np
 
 __all__ = ["measure_sweep_scaling", "measure_tp_scaling", "measure_scaling"]
-
-
-def _sync(x) -> float:
-    """Device sync via a host transfer (works on global sharded arrays)."""
-    import jax.numpy as jnp
-
-    return float(jnp.sum(jnp.where(jnp.isfinite(x), x, 0.0)))
 
 
 def _make_params(n: int, Re: float):
@@ -76,13 +69,15 @@ def measure_sweep_scaling(devices: Sequence, n: int = 15, b_per_dev: int = 2,
         mesh = Mesh(np.asarray(devs), ("sweep",))
         put = lambda x: jax.device_put(
             x, NamedSharding(mesh, P("sweep", *([None] * (x.ndim - 1)))))
-        ops, states = jax.tree.map(put, build(B))
-        s, *_ = runner(ops, states, jnp.asarray(0, jnp.int32))
-        _sync(s.u)  # compile + warm
+        ops, states, done, conv_iter = jax.tree.map(
+            put, (*build(B), jnp.zeros(B, bool), jnp.full(B, -1, jnp.int32)))
+        start = jnp.asarray(0, jnp.int32)
+        s, *_ = runner(ops, states, start, done, conv_iter)
+        jax.block_until_ready(s.u)  # compile + warm
         t0 = time.time()
         for _ in range(calls):
-            s, *_ = runner(ops, states, jnp.asarray(0, jnp.int32))
-        _sync(s.u)
+            s, *_ = runner(ops, states, start, done, conv_iter)
+        jax.block_until_ready(s.u)
         return B * chunk * calls / (time.time() - t0)
 
     d = len(devices)
@@ -126,11 +121,11 @@ def measure_tp_scaling(devices: Sequence, n: int = 15, chunk: int = 50,
         runner = spatial.make_sharded_chunk_runner(mesh, ops, chunk, 0.0, 10)
         ref = jnp.asarray(jnp.inf, jnp.float32)
         state, *_ = runner(state, 0, ref)
-        _sync(state[0])  # compile + warm
+        jax.block_until_ready(state[0])  # compile + warm
         t0 = time.time()
         for _ in range(calls):
             state, *_ = runner(state, 0, ref)
-        _sync(state[0])
+        jax.block_until_ready(state[0])
         return chunk * calls / (time.time() - t0)
 
     r1 = rate_on(devices[:1])

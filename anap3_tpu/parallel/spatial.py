@@ -1,9 +1,9 @@
-"""Tensor-parallel spectral stepping: one large solve sharded across chips.
+"""Tensor-parallel spectral stepping: one large solve sharded across devices.
 
 The reference has no per-solve domain decomposition (problem sizes fit one
-host); this module exists for the scaling axis the TPU design calls for
-(SURVEY §5 "long-context"): at large N, shard the x-axis of every field over
-an ICI mesh axis and express the x-direction derivative matmuls as
+host); this module exists for the scaling axis SURVEY §5 ("long-context")
+calls for: at large N, shard the x-axis of every field over a device mesh
+axis and express the x-direction derivative matmuls as
 psum_scatter collectives, while y-direction matmuls stay shard-local.
 
 Formulation (all state arrays (N+1, N+1), rows = x index, sharded over the

@@ -112,8 +112,7 @@ class CheckpointManager:
     # discretization and MUST match the checkpoint.
     RUN_CONTROL_KEYS = frozenset({
         "max_iterations", "tolerance", "chunk_size", "checkpoint_dir",
-        "checkpoint_every_chunks", "use_pallas", "convergence_metric",
-        "stall_chunks", "matmul_algorithm",
+        "checkpoint_every_chunks", "convergence_metric", "stall_chunks",
     })
 
     def __init__(self, directory, params=None, every_chunks: int = 10,

@@ -1,4 +1,4 @@
-"""Hydra-style config composition (no hydra dependency in this image).
+"""Hydra-style config composition (no hydra or PyYAML dependency).
 
 Implements the subset of Hydra/OmegaConf semantics the reference relies on
 (conf/ tree, main.py:228, SURVEY §5 "Config / flag system"):
@@ -31,7 +31,7 @@ import re
 from pathlib import Path
 from typing import Any, Dict, Iterable, List, Tuple
 
-import yaml
+from . import yamlio
 
 __all__ = ["compose", "expand_multirun", "instantiate", "ConfigError", "Interval"]
 
@@ -64,7 +64,10 @@ def _load_yaml(path: Path) -> Tuple[dict, str | None]:
     m = re.search(r"^#\s*@package\s+(\S+)", text, flags=re.MULTILINE)
     if m:
         package = m.group(1)
-    data = yaml.safe_load(text) or {}
+    try:
+        data = yamlio.load(text) or {}
+    except yamlio.YamlError as exc:
+        raise ConfigError(f"{path}: {exc}") from exc
     if not isinstance(data, dict):
         raise ConfigError(f"{path} must contain a mapping")
     return data, package
@@ -272,11 +275,11 @@ def _parse_value(text: str, allow_sweep: bool = False):
                 f"use a bracketed list [a,b] for a literal list value")
         return [_parse_value(t) for t in text.split(",")]
     try:
-        val = yaml.safe_load(text)
-    except yaml.YAMLError:
+        val = yamlio.load(text)
+    except yamlio.YamlError:
         return text
     if isinstance(val, str):
-        # pyyaml does not recognise "1e-5"-style scientific notation
+        # YAML 1.1 does not recognise "1e-5"-style scientific notation
         try:
             return float(val)
         except ValueError:

@@ -2,8 +2,8 @@
 
 The reference logs params/metrics/artifacts/tags to MLflow with a
 parent/child hierarchy for sweeps (main.py:75-120, base.py:796-964,
-utilities/mlflow/callback.py). The mlflow client is not in this image, so
-this module implements the same contract against the on-disk FileStore
+utilities/mlflow/callback.py). The mlflow client is optional, so this
+module implements the same contract against the on-disk FileStore
 layout mlflow uses (``mlruns/<experiment_id>/<run_id>/{meta.yaml, params/,
 metrics/, tags/, artifacts/}``) — a later ``pip install mlflow`` can open the
 directory directly (``mlflow ui --backend-store-uri ./mlruns``).
@@ -31,7 +31,7 @@ import uuid
 from pathlib import Path
 from typing import Dict, List, Optional
 
-import yaml
+from . import yamlio
 
 log = logging.getLogger(__name__)
 
@@ -108,7 +108,7 @@ def _experiments() -> Dict[str, str]:
     for d in _root().iterdir():
         meta = d / "meta.yaml"
         if d.is_dir() and meta.exists():
-            m = yaml.safe_load(meta.read_text()) or {}
+            m = yamlio.load(meta.read_text()) or {}
             if "experiment_id" in m:
                 out[m.get("name", d.name)] = str(m["experiment_id"])
     return out
@@ -148,7 +148,7 @@ def set_experiment(name: str) -> str:
         "lifecycle_stage": "active",
         "name": name,
     }
-    (exp_dir / "meta.yaml").write_text(yaml.safe_dump(meta))
+    (exp_dir / "meta.yaml").write_text(yamlio.dump(meta))
     _state["experiment_id"] = exp_id
     return exp_id
 
@@ -241,7 +241,7 @@ def start_run(run_name: Optional[str] = None, tags: Optional[dict] = None,
         "status": 1,  # RUNNING
         "user_id": "anap3",
     }
-    (path / "meta.yaml").write_text(yaml.safe_dump(meta))
+    (path / "meta.yaml").write_text(yamlio.dump(meta))
     run = Run(rid, exp_id, path)
     _stack().append(run)
     if run_name:
@@ -301,10 +301,10 @@ def end_run(status: str = "FINISHED") -> None:
         c.set_terminated(run.run_id, status=status)
         return
     meta_path = run.path / "meta.yaml"
-    meta = yaml.safe_load(meta_path.read_text())
+    meta = yamlio.load(meta_path.read_text())
     meta["end_time"] = _ms()
     meta["status"] = 3 if status == "FINISHED" else 4
-    meta_path.write_text(yaml.safe_dump(meta))
+    meta_path.write_text(yamlio.dump(meta))
 
 
 def _require_run() -> Run:
@@ -392,7 +392,7 @@ def log_dict(data: dict, artifact_file: str) -> None:
     dest = run.artifact_dir / artifact_file
     dest.parent.mkdir(parents=True, exist_ok=True)
     if artifact_file.endswith((".yaml", ".yml")):
-        dest.write_text(yaml.safe_dump(data))
+        dest.write_text(yamlio.dump(data))
     else:
         dest.write_text(json.dumps(data, indent=2, default=str))
 
@@ -400,17 +400,12 @@ def log_dict(data: dict, artifact_file: str) -> None:
 def log_table(rows, artifact_file: str) -> None:
     """Rows (list of dicts or DataFrame) -> mlflow-style table JSON artifact."""
     run = _require_run()
-    try:
-        import pandas as pd
-
-        if isinstance(rows, pd.DataFrame):
-            df = rows
-        else:
-            df = pd.DataFrame(rows)
-        payload = {"columns": list(df.columns),
-                   "data": df.values.tolist()}
-    except Exception:
-        payload = {"rows": rows}
+    if hasattr(rows, "columns"):  # a DataFrame
+        columns, data = list(rows.columns), rows.values.tolist()
+    else:
+        columns = list(dict.fromkeys(k for row in rows for k in row))
+        data = [[row.get(c) for c in columns] for row in rows]
+    payload = {"columns": columns, "data": data}
     c = _client()
     if c is not None:
         c.log_dict(run.run_id, payload, artifact_file)
@@ -426,7 +421,7 @@ def log_table(rows, artifact_file: str) -> None:
 
 
 def _read_run(path: Path) -> dict:
-    meta = yaml.safe_load((path / "meta.yaml").read_text()) or {}
+    meta = yamlio.load((path / "meta.yaml").read_text()) or {}
     params = {p.name: p.read_text() for p in (path / "params").iterdir()} \
         if (path / "params").exists() else {}
     tags = {t.name: t.read_text() for t in (path / "tags").iterdir()} \

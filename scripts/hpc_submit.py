@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Cluster sweep submission: pre-create the parent run, emit a job script.
 
-TPU-native counterpart of the reference's LSF job-array generator
+Counterpart of the reference's LSF job-array generator
 (scripts/hpc_submit.py): it reads an experiment overlay's sweep parameters,
 pre-creates the tracking parent run BEFORE submission — the same
 race-avoidance the reference applies (hpc_submit.py:23-27,178-180: many
@@ -10,8 +10,8 @@ submission script with one sweep point per array index.
 
 Two backends:
 - ``--backend lsf``: a ``bsub -J name[1-N]`` array script (DTU-HPC parity);
-- ``--backend shell``: a plain bash fan-out for a TPU host (members run
-  sequentially or under ``parallel -j``; for single-chip TPU hosts the
+- ``--backend shell``: a plain bash fan-out for one host (members run
+  sequentially or under ``parallel -j``; for a single-accelerator host the
   in-process vmapped sweep in main.py is normally the better tool — this
   exists for heterogeneous sweeps that cannot share one device batch).
 

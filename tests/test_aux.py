@@ -295,3 +295,72 @@ class TestStallDetection:
                               tolerance=1e-6, max_iterations=10**6,
                               chunk=50, stall_chunks=5)
         assert res.converged and not res.stalled
+
+
+class TestPrecisionPolicy:
+    @pytest.mark.parametrize("solver", ["SGSolver", "FSGSolver"])
+    def test_auto_dtype_computes_float64_without_x64(self, solver, tmp_path):
+        """In a fresh process that never enabled x64 itself, dtype='auto'
+        resolves to float64 AND the state and operators are float64 (the
+        solver constructor turns x64 on; before, they silently stayed
+        float32 while the run reported float64)."""
+        code = (
+            "import jax\n"
+            "assert not jax.config.jax_enable_x64\n"
+            "from anap3_tpu.models.spectral import " + solver + " as S\n"
+            "s = S(Re=100.0, nx=12, ny=12, dtype='auto')\n"
+            "print(s.params.dtype, s.state.u.dtype, s.state.p.dtype,"
+            " s.ops.Dx.dtype, s.ops.nu.dtype)\n")
+        out = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            cwd=tmp_path, timeout=300,
+            env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
+                 "PYTHONPATH": str(REPO), "HOME": str(tmp_path)})
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == ["float64"] * 5
+
+
+class TestCompileCache:
+    def test_honours_env_variable(self, monkeypatch, tmp_path):
+        from anap3_tpu.utils import compile_cache as cc
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+        assert cc.cache_dir() == tmp_path / "c"
+
+    def test_fixed_repo_path_when_unset(self, monkeypatch):
+        from anap3_tpu.utils import compile_cache as cc
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert cc.cache_dir() == REPO / ".jax_cache"
+        assert cc.DEFAULT_CACHE_DIR == REPO / ".jax_cache"
+
+
+class TestTraceReduction:
+    def test_busy_time_merges_overlaps(self):
+        from anap3_tpu.utils.profiling import busy_time
+
+        assert busy_time([]) == 0.0
+        assert busy_time([(0, 10), (5, 12), (20, 25), (21, 22)]) == 17.0
+
+    def test_device_activity_reads_a_recorded_trace(self, tmp_path):
+        """The reduction runs on a real trace; here the CPU plane's XLA
+        worker lines stand in for the GPU stream lines bench.py reads."""
+        import jax
+
+        from anap3_tpu.utils.profiling import device_activity, device_trace
+
+        f = jax.jit(lambda x: jnp.sin(x) @ x)
+        x = jnp.ones((64, 64))
+        f(x).block_until_ready()
+        with device_trace(str(tmp_path)):
+            for _ in range(3):
+                x = f(x)
+            x.block_until_ready()
+        act = device_activity(tmp_path, plane_prefix="/host:CPU",
+                              line_prefix="tf_XLA")
+        assert act["kernels"] > 0
+        assert 0.0 < act["busy_seconds"] <= act["window_seconds"]
+        assert 0.0 <= act["idle_share"] < 1.0
+        with pytest.raises(ValueError, match="lines seen"):
+            device_activity(tmp_path, plane_prefix="/host:CPU",
+                            line_prefix="Stream")

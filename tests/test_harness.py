@@ -1,6 +1,8 @@
 """Tests for config composition, tracking, optimization, and the CLI driver."""
 
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -91,7 +93,7 @@ class TestConfig:
 
         with pytest.raises(C.ConfigError, match="platform"):
             M.run_multirun(["solver=spectral/sg", "N=12",
-                            "platform=cpu,tpu"])
+                            "platform=cpu,gpu"])
 
     def test_interval_parsing(self):
         cfg = C.compose(CONF, ["solver=spectral/sg",
@@ -279,49 +281,6 @@ class TestMultirunBatched:
         jobs = M.C.expand_multirun(M.REPO_ROOT / "conf",
                                    ["solver=spectral/sg", "N=8,12"])
         assert not M._batchable(jobs)  # differing N -> no shared operators
-
-    def test_lane_kernel_split_balances_oversized_groups(self, monkeypatch):
-        """A single-device SG group above the aligned lane kernel's VMEM
-        budget is split into balanced sub-batches that each fit (the
-        measured N=96 B=64 OOM, ops/pallas_lanes_aligned)."""
-        import jax
-
-        import main as M
-
-        jobs = [{"solver": {"_target_": "anap3_tpu.models.SGSolver",
-                            "use_pallas": "auto"}, "N": 96}] * 64
-        # CPU backend (this suite) -> no split
-        assert M._lane_kernel_split(jobs) is None
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-        if len(jax.devices()) > 1:  # 8-device CPU mesh: shard, not split
-            assert M._lane_kernel_split(jobs) is None
-        monkeypatch.setattr(jax, "devices", lambda: [object()])
-        parts = M._lane_kernel_split(jobs)
-        assert parts is not None and sum(len(p) for p in parts) == 64
-        from anap3_tpu.ops.pallas_lanes_aligned import \
-            suggest_aligned_lane_count
-
-        fit = suggest_aligned_lane_count(96, 64)
-        assert all(2 <= len(p) <= fit for p in parts)
-        assert max(len(p) for p in parts) - min(len(p) for p in parts) <= 1
-        # ineligible batches (the lane kernel would reject every sub-batch)
-        # must run whole on the vmapped path instead of split-serialized
-        f64 = [dict(j, solver=dict(j["solver"], dtype="float64"))
-               for j in jobs]
-        assert M._lane_kernel_split(f64) is None
-        # uniform singular batches are lane-kernel eligible (round 5) and
-        # split under the singular VMEM lane budget; MIXED corner modes
-        # fall back whole to the vmapped path
-        sing = [dict(j, solver=dict(j["solver"],
-                                    corner_treatment="singular"))
-                for j in jobs]
-        sparts = M._lane_kernel_split(sing)
-        assert sparts is not None and sum(len(p) for p in sparts) == 64
-        from anap3_tpu.ops.pallas_lanes_aligned import (
-            suggest_aligned_lane_count as _slc)
-        sfit = _slc(96, 64, singular=True)
-        assert all(len(p) <= sfit for p in sparts)
-        assert M._lane_kernel_split(sing[:32] + jobs[:32]) is None
 
     @pytest.mark.slow
     def test_threaded_heterogeneous_sweep(self, tmp_path, monkeypatch):
@@ -533,3 +492,65 @@ class TestRemoteTracking:
             T.log_metric("m", 1.0)
         runs = T.search_runs(experiment_name="local-exp")
         assert len(runs) == 1 and runs[0]["metrics"]["m"] == 1.0
+
+
+_CONF_FILES = sorted(str(p.relative_to(CONF))
+                     for p in CONF.glob("**/*.yaml"))
+
+
+class TestYamlReader:
+    @pytest.mark.parametrize("rel", _CONF_FILES)
+    def test_matches_pyyaml_on_conf_tree(self, rel):
+        """The in-package reader parses every config file exactly as
+        PyYAML's safe_load does (PyYAML itself is off the main path)."""
+        yaml = pytest.importorskip("yaml")
+        from anap3_tpu.utils import yamlio
+
+        text = (CONF / rel).read_text()
+        assert yamlio.load(text) == yaml.safe_load(text)
+
+    def test_dump_round_trips(self):
+        """What the tracking store writes (meta.yaml, config.yaml) reads
+        back identically with this reader and with PyYAML."""
+        from anap3_tpu.utils import yamlio
+
+        data = {"a": 1, "b": [1, "x", {"k": "v"}], "c": {
+            "none": None, "f": 1e-6, "big": -3.5e20, "inf": float("inf"),
+            "empty": "", "sci_str": "1e-9", "yes": "yes", "t": True,
+            "colon": "a: b", "interp": "${x}", "path": "/p/x y",
+            "quote": "it's", "comma": "a,b", "dash": "-x", "lst": [],
+            "map": {}}}
+        text = yamlio.dump(data)
+        assert yamlio.load(text) == data
+        yaml = pytest.importorskip("yaml")
+        assert yaml.safe_load(text) == data
+
+
+def test_plots_false_main_path_needs_only_jax_numpy_scipy(tmp_path):
+    """solve -> validate -> log with plots=false imports none of PyYAML,
+    pandas, matplotlib, seaborn, h5py or pyvista (the card's machine is
+    only sure to have JAX, numpy and scipy)."""
+    code = (
+        "import sys\n"
+        "BLOCKED = {'yaml', 'pandas', 'matplotlib', 'seaborn', 'h5py',"
+        " 'pyvista'}\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import main\n"
+        "common = ['plots=false', 'tolerance=1e-3', 'max_iterations=400',"
+        " 'mlflow.tracking_uri=" + str(tmp_path / "mlruns") + "']\n"
+        "main.main(['solver=spectral/sg', 'N=8'] + common)\n"
+        "main.main(['solver=fv', 'N=8'] + common)\n"
+        "main.main(['-m', 'solver=spectral/sg', 'N=8', 'Re=100,200']"
+        " + common)\n"
+        "print('OK')\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, timeout=600,
+        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
+             "PYTHONPATH": str(CONF.parent), "HOME": str(tmp_path)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("OK")

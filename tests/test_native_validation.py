@@ -22,8 +22,8 @@ class TestNativeCodec:
         arr = vts._decode_inline_binary(enc, np.float64)
         np.testing.assert_array_equal(arr, np.frombuffer(data))
 
-    def test_reads_reference_fixture(self):
-        grid = vts.read_vts("/root/reference/data/validation/fv/Re100/solution.vts")
+    def test_reads_reference_fixture(self, repo_root):
+        grid = vts.read_vts(repo_root / "data/validation/fv/Re100/solution.vts")
         assert grid.point_data["u"].shape == (128 * 128,)
         assert abs(grid.point_data["u"]).max() < 1.0
 

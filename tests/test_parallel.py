@@ -62,6 +62,34 @@ class TestBatchedSweep:
                 res.history["energy"][k][:50],
                 np.asarray(single.history["energy"][:50]), rtol=1e-8)
 
+    def test_lane_keeps_its_iteration_across_chunks(self):
+        """A lane that converges chunks before the slowest one stays frozen
+        at its own convergence iteration (done/conv_iter carry over chunk
+        boundaries) instead of stepping again and reporting the batch's
+        total."""
+        opses, states, singles = [], [], []
+        for Re in (100.0, 400.0):
+            p = make_params(Re, tolerance=1e-4)
+            ops, _ = core.build_spectral_ops(p)
+            state = core.initial_state(ops)
+            opses.append(ops)
+            states.append(state)
+            singles.append(run_fixed_point(
+                lambda s, o=ops: core.sg_step(o, s), lambda s: (s.u, s.v),
+                state, tolerance=1e-4, max_iterations=4000, chunk=50))
+        res = sweep_mod.run_batched_sweep(
+            core.sg_step, lambda s: (s.u, s.v), sweep_mod.stack_ops(opses),
+            jax.tree.map(lambda *a: jnp.stack(a), *states),
+            tolerance=1e-4, max_iterations=4000, chunk=50)
+        its = [int(r.iterations) for r in singles]
+        assert all(r.converged for r in singles) and res.converged.all()
+        assert abs(its[0] - its[1]) > 100  # the lanes finish chunks apart
+        for k in range(2):
+            assert abs(int(res.iterations[k]) - its[k]) <= 2
+            np.testing.assert_allclose(np.asarray(res.states.u[k]),
+                                       np.asarray(singles[k].state.u),
+                                       rtol=1e-8, atol=1e-10)
+
     def test_energy_criterion_per_lane(self):
         """Batched sweeps support the kinetic-energy plateau: each lane's
         convergence matches its single-run energy-criterion solve."""
@@ -229,41 +257,6 @@ class TestGraftEntry:
 
 
 class TestBatchedFSG:
-    def test_fsg_level_uses_lane_kernel(self, monkeypatch):
-        """run_batched_fsg dispatches each level through the lane-batched
-        fused kernel when eligible (interpret mode on CPU) and reproduces
-        the vmapped XLA path."""
-        from anap3_tpu.ops import pallas_lanes as PL
-        from anap3_tpu.parallel import fsg_sweep
-
-        real = PL.make_lane_chunk_runner
-        calls = []
-
-        def interp(ops_list, chunk, tol, warmup, **kw):
-            calls.append(len(ops_list))
-            kw["interpret"] = True
-            return real(ops_list, chunk, tol, warmup, **kw)
-
-        monkeypatch.setattr(PL, "make_lane_chunk_runner", interp)
-
-        def fsg_params(Re, **kw):
-            return make_params(Re, n=12, multigrid="fsg", n_levels=1,
-                               coarse_tolerance_factor=1.0, dtype="float32",
-                               tolerance=1e-3, max_iterations=600,
-                               chunk_size=100, name="spectral_fsg", **kw)
-
-        lanes = [fsg_params(100.0, use_pallas=True),
-                 fsg_params(400.0, use_pallas=True)]
-        res = fsg_sweep.run_batched_fsg(lanes)
-        assert calls == [2]
-        ref = fsg_sweep.run_batched_fsg([fsg_params(100.0),
-                                         fsg_params(400.0)])
-        assert [r.iterations for r in res] == [r.iterations for r in ref]
-        # x3 bf16 decomposition vs the f32 XLA step: near-f32 agreement
-        np.testing.assert_allclose(np.asarray(res[0].state.u),
-                                   np.asarray(ref[0].state.u),
-                                   rtol=1e-4, atol=1e-4)
-
     @pytest.mark.slow
     def test_batched_fsg_matches_per_lane(self):
         """Batched FSG lanes reproduce the standalone FSG solver physics."""

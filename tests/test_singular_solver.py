@@ -92,34 +92,6 @@ class TestSingularOps:
         S = singular_fields_on_grid(grid["x_nodes"], grid["y_nodes"])
         np.testing.assert_allclose(np.asarray(ops.sing_u), S["u"])
 
-    def test_fused_paths_singular_tier_dispatch(self):
-        """Singular mode routes every aligned size (N % 8 == 0 up to the
-        tier's own 320 ceiling, round 5) to the bordered-core aligned
-        kernel; non-sublane-aligned sizes fall to the tiled kernels; the
-        untiled whole-step kernel (zero/lid-only borders) is never
-        selected."""
-        from anap3_tpu.models.spectral import make_fused_paths
-
-        for n in (96, 128, 320):
-            p = SpectralParameters(Re=100.0, nx=n, ny=n, dtype="float32",
-                                   corner_treatment="singular")
-            ops, _ = core.build_spectral_ops(p, dtype=jnp.float32)
-            step, factory = make_fused_paths(ops, p, 1e-6)
-            assert factory is not None
-            names = factory.__code__.co_names + factory.__code__.co_freevars
-            assert "make_aligned_chunk_runner" in names
-            assert "make_pallas_chunk_runner" not in names
-
-        p220 = SpectralParameters(Re=100.0, nx=220, ny=220, dtype="float32",
-                                  corner_treatment="singular")
-        ops220, _ = core.build_spectral_ops(p220, dtype=jnp.float32)
-        step220, factory220 = make_fused_paths(ops220, p220, 1e-6)
-        assert factory220 is not None
-        names220 = (factory220.__code__.co_names
-                    + factory220.__code__.co_freevars)
-        assert "make_tiled_chunk_runner" in names220
-        assert "make_aligned_chunk_runner" not in names220
-
     def test_cold_start_floor(self):
         """Calibrated against the measured rest-start brackets:
         Re=400: 16/12, Re=1000: 24/16, Re=3200: 40/-."""
@@ -153,84 +125,6 @@ class TestSingularOps:
         # smoothed-lid hierarchy still coarsens to the reference's N=12
         s2 = FSGSolver(Re=400.0, nx=48, ny=48, n_levels=3)
         assert min(s2._level_orders()) < singular_min_n(400)
-
-
-class TestChunkCap:
-    def test_fused_factory_advertises_chunk_cap(self):
-        """VMEM caps the singular N>192 rows buffer at 2000 steps; the
-        factory must ADVERTISE the cap and the solvers must book the same
-        chunk with run_fixed_point (a silently smaller rows buffer crashes
-        the history masking and corrupts iteration accounting)."""
-        from anap3_tpu.models.spectral import (effective_chunk,
-                                               make_fused_paths)
-
-        # N=220 singular routes to the TILED tier (220 % 8 != 0, outside
-        # the aligned tier; every aligned size now rides the bordered-core
-        # kernel up to 320): capped
-        p = SpectralParameters(Re=1000.0, nx=220, ny=220, dtype="float32",
-                               corner_treatment="singular")
-        ops, _ = core.build_spectral_ops(p, dtype=jnp.float32)
-        _, factory = make_fused_paths(ops, p, 1e-6)
-        assert factory.max_chunk == 2000
-        assert effective_chunk(factory, 5000) == 2000
-        assert effective_chunk(factory, 1000) == 1000
-        assert effective_chunk(None, 5000) == 5000
-        # aligned sizes (N in {128, 256}) ride the bordered-core kernel,
-        # whose only chunk-scaled buffer is the (chunk, 128) rows strip:
-        # uncapped (chunk 5000 at N=256 measured in the sharp-lid ladder)
-        p2 = SpectralParameters(Re=1000.0, nx=256, ny=256, dtype="float32",
-                                corner_treatment="singular")
-        ops2, _ = core.build_spectral_ops(p2, dtype=jnp.float32)
-        _, f2 = make_fused_paths(ops2, p2, 1e-6)
-        assert effective_chunk(f2, 5000) == 5000
-
-
-class TestTiledSingularKernel:
-    def test_step_parity_with_xla(self):
-        """Tiled x6 kernel (interpret) vs core.sg_step on singular ops:
-        state and all metrics match to f32 roundoff over 3 steps."""
-        from anap3_tpu.ops.pallas_tiled import make_tiled_sg_step
-
-        p = SpectralParameters(Re=400.0, nx=32, ny=32, dtype="float32",
-                               corner_treatment="singular")
-        ops, _ = core.build_spectral_ops(p, dtype=jnp.float32)
-        st_ref = st_k = core.initial_state(ops)
-        step = make_tiled_sg_step(ops, interpret=True, algorithm="x6")
-        for _ in range(3):
-            st_ref, m_ref = core.sg_step(ops, st_ref)
-            st_k, m_k = step(st_k)
-        np.testing.assert_allclose(np.asarray(st_k.u), np.asarray(st_ref.u),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_k.v), np.asarray(st_ref.v),
-                                   rtol=1e-4, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(st_k.p), np.asarray(st_ref.p),
-                                   rtol=1e-4, atol=1e-5)
-        for k in ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
-                  "palinstrophy"):
-            assert float(m_k[k]) == pytest.approx(float(m_ref[k]), rel=2e-3), k
-
-    @pytest.mark.slow
-    def test_chunk_runner_parity(self):
-        from anap3_tpu.ops.pallas_tiled import make_tiled_chunk_runner
-
-        p = SpectralParameters(Re=400.0, nx=32, ny=32, dtype="float32",
-                               corner_treatment="singular")
-        ops, _ = core.build_spectral_ops(p, dtype=jnp.float32)
-        st = core.initial_state(ops)
-        runner = make_tiled_chunk_runner(ops, 3, 1e-30, 10, interpret=True,
-                                         algorithm="x6")
-        new_state, done, conv, converged, rows, _ = runner(
-            st, jnp.int32(0), jnp.float32(np.inf))
-        ref = st
-        for _ in range(3):
-            ref, m = core.sg_step(ops, ref)
-        np.testing.assert_allclose(np.asarray(new_state.u),
-                                   np.asarray(ref.u), rtol=1e-4, atol=1e-6)
-        assert not bool(done)
-        # last metric row matches the last step's metrics
-        R = np.asarray(rows)
-        assert R[2, 4] == pytest.approx(float(m["energy"]), rel=2e-3)
-        assert R[2, 6] == pytest.approx(float(m["palinstrophy"]), rel=2e-3)
 
 
 class TestSingularSolve:
@@ -283,7 +177,7 @@ class TestSingularSolve:
         Newton-Krylov solve (f64, ||F||_rms <= 1e-8, seconds at this size)
         rather than a marched SG reference: the singular Re=100 march
         rides a ~400k-step viscous timescale and is still 1.6% short of
-        the steady energy after 1.5M steps (measured on TPU), so any SG
+        the steady energy after 1.5M steps (measured in float32), so any SG
         budget a test can afford compares two unconverged transients.
         The round-3 restriction bug drifted this config's energy 4.6x off
         (0.159 vs 0.034) — the 0.5%-of-lid max|u| bar discriminates

@@ -99,14 +99,12 @@ class TestSolve:
         assert 0.01 < solved.metrics.final_energy < 0.1
 
     def test_ghia_centerline_re100(self, solved, repo_root):
-        import pandas as pd
-
-        csv = "/root/reference/data/validation/ghia/ghia_Re100_u_centerline.csv"
-        ghia = pd.read_csv(csv)
+        ghia = np.loadtxt(repo_root / "data/validation/ghia/"
+                          "ghia_Re100_u_centerline.csv",
+                          delimiter=",", skiprows=1)
         u_c, _ = solved._evaluate_at_points(
-            np.full(len(ghia), 0.5), ghia["y"].to_numpy()
-        )
-        err = np.max(np.abs(u_c - ghia["u"].to_numpy()))
+            np.full(len(ghia), 0.5), ghia[:, 0])
+        err = np.max(np.abs(u_c - ghia[:, 1]))
         assert err < 0.06  # smoothed-lid vs sharp-lid difference bound
 
     def test_fields_and_vts_export(self, solved, tmp_path):
@@ -165,29 +163,6 @@ class TestLegendreBasis:
         solver.solve()
         assert solver.metrics.converged
         assert solver.metrics.psi_min == pytest.approx(-0.103, abs=0.02)
-
-
-class TestPallasStep:
-    def test_fused_kernel_matches_xla_path(self):
-        """The Pallas whole-step kernel (interpret mode on CPU) reproduces
-        the XLA step to float32 roundoff, including metrics."""
-        from anap3_tpu.ops.pallas_step import make_pallas_sg_step
-
-        params = make_params(nx=16, ny=16, dtype="float32")
-        ops, _ = core.build_spectral_ops(params)
-        state = core.initial_state(ops)
-        for _ in range(5):
-            state, _ = core.sg_step(ops, state)
-        pstep = make_pallas_sg_step(ops, interpret=True)
-        s_ref, m_ref = core.sg_step(ops, state)
-        s_pl, m_pl = pstep(state)
-        np.testing.assert_allclose(np.asarray(s_pl.u), np.asarray(s_ref.u),
-                                   atol=5e-6)
-        np.testing.assert_allclose(np.asarray(s_pl.p), np.asarray(s_ref.p),
-                                   atol=5e-6)
-        for key in m_ref:
-            np.testing.assert_allclose(float(m_pl[key]), float(m_ref[key]),
-                                       rtol=5e-5)
 
 
 class TestResidualConvergence:
@@ -379,37 +354,3 @@ class TestEnergyConvergence:
             run_fixed_point(lambda s: (s, {}), lambda s: (s, s),
                             jnp.zeros(3), tolerance=1e-6, max_iterations=10,
                             convergence_metric="auto")
-
-
-class TestPallasChunkRunner:
-    def test_matches_xla_chunk_runner_including_convergence(self):
-        """The in-kernel chunk runner (interpret mode) reproduces the XLA
-        chunked-scan runner: identical states, metric rows and the exact
-        convergence iteration with frozen-NaN tails."""
-        from anap3_tpu.models.runner import make_chunk_runner
-        from anap3_tpu.ops.pallas_chunk import make_pallas_chunk_runner
-
-        params = make_params(nx=12, ny=12, dtype="float32")
-        ops, _ = core.build_spectral_ops(params)
-        state = core.initial_state(ops)
-        CH, TOL = 400, 1e-3
-        xla_runner = make_chunk_runner(lambda s: core.sg_step(ops, s),
-                                       lambda s: (s.u, s.v), CH, TOL)
-        pl_runner = make_pallas_chunk_runner(ops, CH, TOL, 10, interpret=True)
-        ref = jnp.asarray(jnp.inf, jnp.float32)
-        sx = sp = state
-        for k in range(4):
-            it = jnp.int32(k * CH)
-            sx, dx_, cx, convx, rx, _ = xla_runner(sx, it, ref)
-            sp, dp_, cp, convp, rp, _ = pl_runner(sp, it, ref)
-            assert bool(dx_) == bool(dp_)
-            if bool(dx_):
-                assert int(cx) == int(cp)
-                assert bool(convx) and bool(convp)
-                assert (np.isnan(np.asarray(rx)[:, 0])
-                        == np.isnan(np.asarray(rp)[:, 0])).all()
-                break
-            np.testing.assert_allclose(np.asarray(sp.u), np.asarray(sx.u),
-                                       atol=1e-6)
-        else:
-            pytest.fail("expected convergence within 4 chunks")
